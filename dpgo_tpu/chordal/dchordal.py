@@ -1,5 +1,5 @@
 """Distributed chordal initialization (DChordal) — four Nesterov-accelerated
-Jacobi-MM linear stages, TPU-native.
+Jacobi-MM linear stages, on the device.
 
 Reproduces the reference pipeline driven by dist_pgo.cpp:144-415 using the
 C++/DChordal classes (DChordalReduced_{R,t}, DChordal_{R,t}):

@@ -1,6 +1,6 @@
 """Batched SO(d)^n manifold operations on [n, d, d] tensors.
 
-TPU-native equivalent of the reference's SOdProduct
+Equivalent of the reference's SOdProduct
 (C++/DPGO/include/DPGO/SOdProduct.h) and its AVX projection kernels
 (C++/DPGO/include/DPGO/internal/). Rotations are stored as true rotation
 matrices R[i] (the reference stores transposed blocks inside its tall
@@ -14,6 +14,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from dpgo_tpu.ops.so3 import polar_so3
+from dpgo_tpu.ops.so3_triton import polar_so3_triton
 
 
 def project_so2(A: jnp.ndarray) -> jnp.ndarray:
@@ -53,37 +56,18 @@ def project_sod(A: jnp.ndarray) -> jnp.ndarray:
     """Project [..., d, d] matrices onto SO(d) (closest in Frobenius norm).
 
     d = 2: closed form; d = 3: branch-free batched Newton-polar iteration
-    (ops/so3.py — the TPU analog of the reference's AVX 3x3 SVD kernels);
-    other d: SVD fallback.
+    (ops/so3.py, the analog of the reference's AVX 3x3 SVD kernels), as one
+    Triton kernel on the GPU, where it beats XLA's fusion of the same body
+    (PERF.md), and as plain jnp elsewhere; other d: SVD fallback.
     """
     d = A.shape[-1]
     if d == 2:
         return project_so2(A)
     if d == 3:
-        if _use_pallas_so3():
-            from dpgo_tpu.ops.pallas_so3 import polar_so3_pallas
-            lead = A.shape[:-2]
-            R = polar_so3_pallas(A.reshape(-1, 3, 3))
-            return R.reshape(*lead, 3, 3)
-        from dpgo_tpu.ops.so3 import polar_so3
+        if jax.default_backend() == "gpu":
+            return polar_so3_triton(A)
         return polar_so3(A)
     return _project_svd(A)
-
-
-_PALLAS_SO3 = None
-
-
-def _use_pallas_so3() -> bool:
-    """Pallas SoA kernel on TPU backends (more accurate than the fused jnp
-    Newton iteration in f32 and equally fast); pure jnp elsewhere."""
-    global _PALLAS_SO3
-    if _PALLAS_SO3 is None:
-        try:
-            import jax as _jax
-            _PALLAS_SO3 = _jax.default_backend() not in ("cpu",)
-        except Exception:
-            _PALLAS_SO3 = False
-    return _PALLAS_SO3
 
 
 def sym(M: jnp.ndarray) -> jnp.ndarray:

@@ -1,6 +1,6 @@
 """Global matrix-free PGO objective / gradient oracle.
 
-TPU-native equivalent of the reference master oracle DPGOStar::evaluate_f /
+Equivalent of the reference master oracle DPGOStar::evaluate_f /
 evaluate_grad (C++/DPGO/src/DPGOStar.cpp:713-829): the exact global objective
 and Riemannian gradient on the full (gathered) pose state, used as the metrics
 harness of the driver (dist_pgo.cpp:523-527 prints 2*fobj and 2*|grad|).

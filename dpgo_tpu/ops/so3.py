@@ -1,10 +1,14 @@
 """Fast batched projection onto SO(3): branch-free Newton polar iteration.
 
-The TPU analog of the reference's hand-written AVX2 batched 3x3 SVD kernels
+The analog of the reference's hand-written AVX2 batched 3x3 SVD kernels
 (C++/DPGO/include/DPGO/internal/svd3x3.h, project_to_SO3.h): XLA's generic
-jnp.linalg.svd lowers to a sequential QR-iteration loop that costs ~14 ms for
-a few thousand 3x3 blocks on TPU; the iteration below is pure VPU element-wise
-math over the batch (~30 us for the same workload).
+jnp.linalg.svd lowers to an iterative per-matrix solver, while the iteration
+below is pure element-wise math over the batch.
+
+The 3x3 matrices travel structure-of-arrays, as nine batch arrays (one per
+entry, row-major), so every operation is element-wise across the batch and
+XLA fuses the whole projection into a few kernels; stacking, reductions over
+the 3x3 axes and gathers would each cut the fusion.
 
 Method: scaled Higham-Newton iteration X <- (zeta X + (zeta X)^-T)/2 converges
 quadratically to the orthogonal polar factor Q with det(Q) = sign(det(A)).
@@ -22,92 +26,106 @@ import jax.numpy as jnp
 _NEWTON_ITERS = 9
 
 
-def _adjugate_T(X):
-    """Transpose of the adjugate of [..., 3, 3]: adj(X)^T[i, j] = cofactor."""
-    a, b, c = X[..., 0, 0], X[..., 0, 1], X[..., 0, 2]
-    d, e, f = X[..., 1, 0], X[..., 1, 1], X[..., 1, 2]
-    g, h, i = X[..., 2, 0], X[..., 2, 1], X[..., 2, 2]
-    c00 = e * i - f * h
-    c01 = f * g - d * i
-    c02 = d * h - e * g
-    c10 = c * h - b * i
-    c11 = a * i - c * g
-    c12 = b * g - a * h
-    c20 = b * f - c * e
-    c21 = c * d - a * f
-    c22 = a * e - b * d
-    row0 = jnp.stack([c00, c01, c02], axis=-1)
-    row1 = jnp.stack([c10, c11, c12], axis=-1)
-    row2 = jnp.stack([c20, c21, c22], axis=-1)
-    return jnp.stack([row0, row1, row2], axis=-2)
+def _mul(x, y):
+    """3x3 product of two 9-tuples (row-major)."""
+    return tuple(sum(x[3 * a + k] * y[3 * k + b] for k in range(3))
+                 for a in range(3) for b in range(3))
 
 
-def _det3(X):
-    return (X[..., 0, 0] * (X[..., 1, 1] * X[..., 2, 2]
-                            - X[..., 1, 2] * X[..., 2, 1])
-            - X[..., 0, 1] * (X[..., 1, 0] * X[..., 2, 2]
-                              - X[..., 1, 2] * X[..., 2, 0])
-            + X[..., 0, 2] * (X[..., 1, 0] * X[..., 2, 1]
-                              - X[..., 1, 1] * X[..., 2, 0]))
+def _transpose(x):
+    return (x[0], x[3], x[6], x[1], x[4], x[7], x[2], x[5], x[8])
 
 
-def _inv_T(X, eps):
-    """X^-T via adjugate, det clamped away from zero."""
-    det = _det3(X)
-    safe = jnp.where(jnp.abs(det) > eps, det,
-                     jnp.where(det >= 0, eps, -eps))
-    return _adjugate_T(X) / safe[..., None, None]
+def _det(x):
+    return (x[0] * (x[4] * x[8] - x[5] * x[7])
+            - x[1] * (x[3] * x[8] - x[5] * x[6])
+            + x[2] * (x[3] * x[7] - x[4] * x[6]))
+
+
+def _adjugate_T(x):
+    """Transpose of the adjugate (the cofactor matrix)."""
+    return (x[4] * x[8] - x[5] * x[7], x[5] * x[6] - x[3] * x[8],
+            x[3] * x[7] - x[4] * x[6], x[2] * x[7] - x[1] * x[8],
+            x[0] * x[8] - x[2] * x[6], x[1] * x[6] - x[0] * x[7],
+            x[1] * x[5] - x[2] * x[4], x[2] * x[3] - x[0] * x[5],
+            x[0] * x[4] - x[1] * x[3])
+
+
+def _fnorm2(x):
+    return sum(v * v for v in x)
+
+
+def _cross(r, s):
+    return (r[1] * s[2] - r[2] * s[1], r[2] * s[0] - r[0] * s[2],
+            r[0] * s[1] - r[1] * s[0])
+
+
+def _clamp_away_from_zero(x, eps):
+    return jnp.where(jnp.abs(x) > eps, x, jnp.where(x >= 0, eps, -eps))
+
+
+def eps_for(dtype) -> float:
+    """Clamp below which a norm or determinant counts as zero."""
+    return 1e-30 if dtype == jnp.float64 else 1e-18
 
 
 def polar_so3(A: jnp.ndarray) -> jnp.ndarray:
     """Project [..., 3, 3] onto SO(3) (Frobenius-closest, det fix included)."""
-    dtype = A.dtype
-    eps = jnp.asarray(1e-30 if dtype == jnp.float64 else 1e-18, dtype)
+    a = tuple(A[..., i, j] for i in range(3) for j in range(3))
+    R = polar_so3_entries(a, eps_for(A.dtype))
+    return jnp.stack(R, axis=-1).reshape(A.shape)
+
+
+def polar_so3_entries(a, eps):
+    """The projection on nine same-shape arrays, the entries of the 3x3
+    matrices in row-major order; returns the nine entries of the result.
+    Element-wise only, so it also serves as a kernel body
+    (ops/so3_triton.py)."""
+    one, zero = jnp.ones_like(a[0]), jnp.zeros_like(a[0])
+    ident = (one, zero, zero, zero, one, zero, zero, zero, one)
 
     # Normalize scale; degenerate (zero) input maps to identity.
-    nrm = jnp.sqrt(jnp.sum(A * A, axis=(-1, -2), keepdims=True))
-    ok = nrm[..., 0, 0] > eps
-    X = jnp.where(ok[..., None, None], A / jnp.maximum(nrm, eps),
-                  jnp.eye(3, dtype=dtype))
+    nrm = jnp.sqrt(_fnorm2(a))
+    ok = nrm > eps
+    inv_n = 1.0 / jnp.maximum(nrm, eps)
+    X = tuple(jnp.where(ok, v * inv_n, i) for v, i in zip(a, ident))
 
     for _ in range(_NEWTON_ITERS):
-        Xinv_T = _inv_T(X, eps)
-        # Higham 1,inf-norm scaling accelerates early iterations.
-        nx = jnp.sum(X * X, axis=(-1, -2))
-        ni = jnp.sum(Xinv_T * Xinv_T, axis=(-1, -2))
-        zeta = (ni / jnp.maximum(nx, eps)) ** 0.25
-        zeta = zeta[..., None, None]
-        X = 0.5 * (zeta * X + Xinv_T / zeta)
-
+        # X^-T via the adjugate, det clamped away from zero.
+        det = _clamp_away_from_zero(_det(X), eps)
+        Xit = tuple(v / det for v in _adjugate_T(X))
+        # Higham Frobenius-norm scaling accelerates early iterations.
+        zeta = jnp.sqrt(jnp.sqrt(_fnorm2(Xit) / jnp.maximum(_fnorm2(X), eps)))
+        X = tuple(0.5 * (zeta * x + y / zeta) for x, y in zip(X, Xit))
     Q = X  # orthogonal, det = sign(det A)
 
     # det < 0 correction: Q (I - 2 v3 v3^T) with v3 the smallest-eigenvalue
-    # eigenvector of H = Q^T A (SPD up to sign).
-    H = jnp.einsum("...ki,...kj->...ij", Q, A)
-    H = 0.5 * (H + jnp.swapaxes(H, -1, -2))
-    q = jnp.trace(H, axis1=-2, axis2=-1) / 3.0
-    Hq = H - q[..., None, None] * jnp.eye(3, dtype=dtype)
-    p = jnp.sqrt(jnp.maximum(jnp.sum(Hq * Hq, axis=(-1, -2)) / 6.0, eps))
-    B = Hq / p[..., None, None]
-    r = jnp.clip(0.5 * _det3(B), -1.0, 1.0)
+    # eigenvector of H = sym(Q^T A) (SPD up to sign).
+    H = _mul(_transpose(Q), a)
+    H = tuple(0.5 * (x + y) for x, y in zip(H, _transpose(H)))
+    q = (H[0] + H[4] + H[8]) / 3.0
+    Hq = (H[0] - q, H[1], H[2], H[3], H[4] - q, H[5], H[6], H[7], H[8] - q)
+    p = jnp.sqrt(jnp.maximum(_fnorm2(Hq) / 6.0, eps))
+    r = jnp.clip(0.5 * _det(tuple(v / p for v in Hq)), -1.0, 1.0)
     phi = jnp.arccos(r) / 3.0
-    # Smallest eigenvalue of H.
     lam3 = q + 2.0 * p * jnp.cos(phi + 2.0 * jnp.pi / 3.0)
-    M = H - lam3[..., None, None] * jnp.eye(3, dtype=dtype)
-    # Null vector of M: the largest cross product of two rows.
-    r0, r1, r2 = M[..., 0, :], M[..., 1, :], M[..., 2, :]
-    c01 = jnp.cross(r0, r1)
-    c12 = jnp.cross(r1, r2)
-    c20 = jnp.cross(r2, r0)
-    cands = jnp.stack([c01, c12, c20], axis=-2)
-    norms = jnp.sum(cands * cands, axis=-1)
-    best = jnp.argmax(norms, axis=-1)
-    v = jnp.take_along_axis(cands, best[..., None, None], axis=-2)[..., 0, :]
-    v = v / jnp.maximum(jnp.sqrt(jnp.sum(v * v, axis=-1, keepdims=True)),
-                        eps)
-    refl = jnp.eye(3, dtype=dtype) - 2.0 * v[..., :, None] * v[..., None, :]
-    Q_fixed = jnp.einsum("...ik,...kj->...ij", Q, refl)
+    M = (H[0] - lam3, H[1], H[2], H[3], H[4] - lam3, H[5],
+         H[6], H[7], H[8] - lam3)
+    # Null vector of M: the largest cross product of two of its rows.
+    c01 = _cross(M[0:3], M[3:6])
+    c12 = _cross(M[3:6], M[6:9])
+    c20 = _cross(M[6:9], M[0:3])
+    n01, n12, n20 = _fnorm2(c01), _fnorm2(c12), _fnorm2(c20)
+    use12 = (n12 > n01) & (n12 >= n20)
+    use20 = ~use12 & (n20 > n01)
+    v = tuple(jnp.where(use12, x, jnp.where(use20, y, z))
+              for x, y, z in zip(c12, c20, c01))
+    vn = jnp.maximum(jnp.sqrt(_fnorm2(v)), eps)
+    v = tuple(x / vn for x in v)
+    refl = tuple((1.0 if i == j else 0.0) - 2.0 * v[i] * v[j]
+                 for i in range(3) for j in range(3))
+    Q_fixed = _mul(Q, refl)
 
-    neg = _det3(A) < 0
-    R = jnp.where(neg[..., None, None], Q_fixed, Q)
-    return jnp.where(ok[..., None, None], R, jnp.eye(3, dtype=dtype))
+    neg = _det(a) < 0
+    return tuple(jnp.where(ok, jnp.where(neg, x, y), i)
+                 for x, y, i in zip(Q_fixed, Q, ident))

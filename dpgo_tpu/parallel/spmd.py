@@ -4,7 +4,7 @@ The reference simulates a robot network in one process with shared-memory
 copies (DPGO_utils.h:397-453). Here the same rectangular node axis is laid out
 over `Mesh(('nodes',))` with `shard_map`: each device owns N/D node blocks and
 runs the identical per-node math; the halo/separator exchange is a collective
-over ICI — the TPU-native equivalent of the reference's per-node
+over the device interconnect — the equivalent of the reference's per-node
 `sent`/`recv` message schedules (DPGO_utils.cpp:326-438). The objective
 pieces needed by metrics / AMM-PGO* master tests are `psum`s of per-shard
 sums.
@@ -198,7 +198,7 @@ class ShardedDPGOSolver(DPGOSolver):
     def _place_global(self, t, R):
         # Shard the gathered pose axis over the mesh: the coupled polish TNT
         # then runs distributed under GSPMD, each CG Hessian product's halo
-        # reads becoming ICI collectives.
+        # reads becoming collectives.
         sh = NamedSharding(self.mesh, P("nodes"))
         return jax.device_put(t, sh), jax.device_put(R, sh)
 

@@ -1,6 +1,6 @@
 """Per-node MM surrogate problem: edge-wise operators, no sparse matrices.
 
-TPU-native re-derivation of the reference's DPGOProblem
+Re-derivation of the reference's DPGOProblem
 (C++/DPGO/include/DPGO/DPGOProblem.h, src/DPGOProblem.cpp) and the surrogate
 matrices of simplify_quadratic_data_matrix (C++/DPGO/src/DPGO_utils.cpp:1398-
 2289). All reference sparse matrices are replaced by edge-wise gather ->
@@ -89,11 +89,11 @@ class NodeProblem:
     null_V: jnp.ndarray      # [n0, kmax] (zero-padded columns)
     precon_inv: jnp.ndarray  # [n0, d, d] block-Jacobi preconditioner blocks
 
-    # Dense operator images for the TNT hot loop (MXU path). On TPU, chains
-    # of gather -> small-einsum -> scatter-add serialize badly; per-node
-    # systems are small (n0 d <= a few thousand), so the G blocks are
-    # materialized as dense matrices applied by single matmuls in tall
-    # Q-storage (Q = R^T blocks stacked, [n0 d, d]).  mG10 = mG01^T.
+    # Dense operator images for the TNT hot loop. Per-node systems are
+    # small (n0 d <= a few thousand), so the G blocks are materialized as
+    # dense matrices applied by single matmuls in tall Q-storage (Q = R^T
+    # blocks stacked, [n0 d, d]) instead of chains of gather ->
+    # small-einsum -> scatter-add.  mG10 = mG01^T.
     dense: bool = dataclasses.field(metadata=dict(static=True))
     mG00_d: jnp.ndarray      # [n0, n0]
     mG01_d: jnp.ndarray      # [n0, n0 d]
@@ -105,7 +105,7 @@ class NodeProblem:
     # null components only exist on blocks without inter edges). Collapses
     # the STPCG Hessian-vector product from four matmuls + a solve
     # (the reference's per-CG-iteration chain, DPGOProblem.cpp:552-577)
-    # to ONE batched MXU matmul.
+    # to ONE batched matmul.
     Hred_d: jnp.ndarray        # [n0 d, n0 d] (zeros when not dense)
     # Dense regularized preconditioner (Hred + (lambda_max/cond) I)^{-1}:
     # the role of the reference's RegularizedCholesky CHOLMOD factor
@@ -114,18 +114,12 @@ class NodeProblem:
     # iterations (only the point-dependent curvature term and the tangent
     # projection are left unpreconditioned).
     precon_dense: jnp.ndarray  # [n0 d, n0 d] (zeros when not dense)
-    # Block panels of Hred / precon_dense for the fused single-kernel
-    # Pallas STPCG (ops/pallas_stpcg.py): [d*d, n_pad, n_pad], built only
-    # for f32 3-D blocks small enough for both operators to sit in VMEM
-    # ([1, 1, 1] placeholders otherwise).
-    Hpan: jnp.ndarray
-    Ppan: jnp.ndarray
     # One-hot inter-edge scatter operator Asel[p, e] = 1{e_self[e] == p}
     # (valid edges only). On the dense path the per-iteration surrogate
     # scatter-add of inter-edge gradient halves into pose slots runs as
-    # ONE MXU matmul Asel @ [dt | dR] instead of a row-serialized TPU
-    # scatter (measured on city10000 16-node: the scatter fusion alone was
-    # 1.8 ms of a 13.4 ms step). [1, 1] placeholder off the dense path.
+    # ONE matmul Asel @ [dt | dR] instead of a scatter-add (whether that
+    # still pays on the GPU is unmeasured). [1, 1] placeholder off the
+    # dense path.
     Asel: jnp.ndarray        # [n0, m1]
 
     # Dynamic rescale (Rescale::Dynamic): persisted per-inter-edge surrogate
@@ -168,7 +162,7 @@ class NodeProblem:
     # blocks + a segment-aggregated Galerkin coarse inverse), and the TNT
     # refinement switches to the coupled (t, R) surrogate model
     # (mm._make_tnt_model_coupled) preconditioned by segment-dense
-    # regularized mG11 inverses — all batched MXU matmuls.
+    # regularized mG11 inverses — all batched matmuls.
     seg: bool = dataclasses.field(metadata=dict(static=True))
     seg_size: int = dataclasses.field(metadata=dict(static=True))
     seg_cg_iters: int = dataclasses.field(metadata=dict(static=True))
@@ -178,9 +172,8 @@ class NodeProblem:
     seg_R_inv: jnp.ndarray   # [n_seg, S d, S d] regularized mG11 inverses
     # BSR image of mG00 for the CG matvec: diagonal [n_seg, S, S] blocks
     # (pre-inversion) + off-diagonal segment-pair blocks with row/col ids.
-    # Batched MXU matmuls + a segment-granular scatter replace the
-    # edge-wise scatter-add, which TPU serializes row-by-row (~3 ms per
-    # pass at 100k-pose scale — the dominant translation-solve cost).
+    # Batched matmuls + a segment-granular scatter replace the edge-wise
+    # scatter-add over 100k+ short rows.
     seg_diag: jnp.ndarray    # [n_seg, S, S]
     seg_blk: jnp.ndarray     # [npair, S, S]
     seg_row: jnp.ndarray     # [npair] int32
@@ -247,7 +240,7 @@ class NodeProblem:
             -sk[:, None, None] * E)
         n0 = self._n0()
         if self.dense and self.Asel.shape[0] == n0:
-            # MXU scatter: one [n0, m1] @ [m1, d + d^2] matmul. HIGHEST
+            # Matmul scatter: one [n0, m1] @ [m1, d + d^2] matmul. HIGHEST
             # precision keeps the f32 accumulation at scatter-add quality
             # (the one-hot rows are exact; only summation order differs).
             d = self.d
@@ -441,7 +434,7 @@ class NodeProblem:
         cancels ~1e4-magnitude bilinear terms down to an O(1) value (a few
         bits of precision), and the restart cascade compares that value
         against fobj — one flipped comparison can accept a catastrophic
-        step (observed: huber+dynamic rescale diverging on TPU). The
+        step (observed: huber+dynamic rescale diverging in f32). The
         relative form only ever multiplies O(|X-Z|) by O(residual)."""
         def sq_diff(aX, aZ):
             return jnp.sum((aX - aZ) * (aX + aZ))
@@ -592,9 +585,8 @@ class NodeProblem:
         blocks + off-diagonal segment pairs) + the dynamic-rescale inter
         diagonal delta 2 (w - 1) tau edge-wise. Exactly equal to the
         dense build's mG00_full (the BSR is a lossless host-side
-        reassembly); chosen over the edge-wise gather/scatter form
-        because TPU serializes scatter-adds row-by-row (~3 ms per pass at
-        100k-pose scale vs ~0.1 ms of MXU matmuls here)."""
+        reassembly); chosen over the edge-wise gather/scatter form, whose
+        scatter-add runs over 100k+ short rows at 100k-pose scale."""
         S = self.seg_size
         n_seg = self.seg_diag.shape[0]
         n0 = self._n0()
@@ -804,7 +796,7 @@ class NodeProblem:
             + tail_extra)
         return out + self.xi * M
 
-    # ------------------------------------------------ dense (MXU) operators
+    # ------------------------------------------------------ dense operators
 
     def to_tall(self, R):
         """[n, d, d] true-rotation blocks -> tall Q-storage [n d, d]."""
@@ -844,11 +836,12 @@ class NodeProblem:
         f32 cancellation noise (~1e-3 at sphere2500 scale) swamps the
         late Newton steps' true decreases and turns TNT's gain ratio into
         noise (observed: rho = -2337 / +1519 rejections burning all 10
-        outer iterations per refinement). All dense MXU matmuls."""
-        # Full working precision (not the bf16 MXU pass): the objective is
-        # evaluated twice per TNT outer iteration and its accuracy decides
-        # accept/reject — bf16 noise here re-creates the rho-noise rejection
-        # storm the relative form exists to prevent.
+        outer iterations per refinement). All dense matmuls."""
+        # Full working precision (never reduced-precision passes such as
+        # TF32): the objective is evaluated twice per TNT outer iteration
+        # and its accuracy decides accept/reject — matmul rounding noise
+        # here re-creates the rho-noise rejection storm the relative form
+        # exists to prevent.
         hi = jax.lax.Precision.HIGHEST
         mm = lambda A, B: jnp.matmul(A, B, precision=hi)
         dt, dQ = t - zt, Q - zQ
@@ -866,10 +859,11 @@ class NodeProblem:
         the precomputed reduced operator Hred (see its field comment), plus
         the point-dependent curvature correction and tangent projection.
 
-        Runs its matmul at the fast (bf16-pass) MXU precision: truncated
-        Newton tolerates ~1e-3 relative Hessian error (the trust-region
-        acceptance test evaluates the objective at full precision), and
-        this matvec dominates the iteration cost."""
+        Runs its matmul at Precision.DEFAULT, which lets an f32 matmul use
+        TF32 tensor cores on the GPU (f64 is unaffected): truncated Newton
+        tolerates ~1e-3 relative Hessian error (the trust-region acceptance
+        test evaluates the objective at full precision), and this matvec
+        dominates the iteration cost."""
         E = jnp.matmul(self.Hred_d, Qdot,
                        precision=jax.lax.Precision.DEFAULT)
         E = E - self.sym_block_tall(Qdot, Q, nablaQ)
@@ -877,7 +871,8 @@ class NodeProblem:
 
     def precondition_tall(self, Q, V):
         # A preconditioner only needs to be a fixed SPD operator, so the
-        # matmul runs at the fast MXU precision like the Hessian matvecs.
+        # matmul runs at Precision.DEFAULT (TF32 in f32 on the GPU) like the
+        # Hessian matvec.
         P = jnp.matmul(self.precon_dense, V,
                        precision=jax.lax.Precision.DEFAULT)
         return self.proj_tall(Q, P)
@@ -999,15 +994,6 @@ def with_weights(base: NodeProblem, w_bar: jnp.ndarray) -> NodeProblem:
         Hred_d = mG11_d - jnp.matmul(mG01_d.T, X)
         repl.update(mG11_d=mG11_d, mG01_d=mG01_d, mG00_d=mG00_d,
                     Hred_d=Hred_d)
-        if base.Hpan.shape[-1] > 1:
-            # Refresh the fused-STPCG Hred panels (Ppan stays: the base
-            # preconditioner remains SPD-valid under w <= 1).
-            n_pad = base.Hpan.shape[-1]
-            pan = Hred_d.reshape(n0, d, n0, d).transpose(1, 3, 0, 2)
-            pan = jnp.pad(pan, ((0, 0), (0, 0), (0, n_pad - n0),
-                                (0, n_pad - n0)))
-            repl.update(Hpan=pan.reshape(d * d, n_pad, n_pad)
-                        .astype(jnp.float32))
 
     return dataclasses.replace(base, **repl)
 
@@ -1061,11 +1047,9 @@ def _build_segment_factors(mg: MultiGraph, xi: float, S: int,
       coupled TNT model;
     - a block-compressed (BSR) image of the OFF-DIAGONAL segment coupling
       of mG00 (seg_blk [npair, S, S] + seg_row/seg_col [npair]): the CG
-      matvec then runs as batched [S, S] MXU matmuls + a segment-granular
+      matvec then runs as batched [S, S] matmuls + a segment-granular
       scatter (a few hundred 1.5 KB rows) instead of an edge-wise
-      scatter-add over 100k+ 12-byte rows, which TPU serializes
-      (measured ~3 ms per scatter at rim-100k scale — the dominant cost
-      of the entire translation solve).
+      scatter-add over 100k+ 12-byte rows.
     `reg` is the per-node lam_max / precon_cond regularizer."""
     N, n0m, d = mg.num_nodes, mg.n0_max, mg.d
     n_seg = -(-n0m // S)
@@ -1317,7 +1301,7 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
     # Lanczos plays in the reference, DPGOProblem.cpp:101-124).
     lam_max = np.abs(jac).sum(axis=(-1, -2)).max(axis=-1)  # [N]
 
-    # Dense operator images for the MXU TNT path (tall Q-storage).
+    # Dense operator images for the TNT path (tall Q-storage).
     dense = n0m * d <= dense_limit and not seg
     if dense:
         nd = n0m * d
@@ -1426,7 +1410,7 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
 
     # Segment-Schwarz factors (the any-block-size path; see the NodeProblem
     # field comments). All dense work is on [S, S] / [S d, S d] contiguous-
-    # segment blocks — batched MXU matmuls at apply time.
+    # segment blocks — batched matmuls at apply time.
     if seg:
         (seg_t_inv, seg_c_inv, seg_R_inv, seg_diag, seg_blk, seg_row,
          seg_col) = _build_segment_factors(mg, xi, seg_size,
@@ -1440,23 +1424,8 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
         seg_row = np.zeros((N, 1), np.int32)
         seg_col = np.zeros((N, 1), np.int32)
 
-    # Fused-STPCG block panels: only when the kernel is usable (f32 blocks
-    # whose two operator panels fit VMEM together; d = 2 and 3 supported).
-    from dpgo_tpu.ops import pallas_stpcg as _pk
-    fused = (dense and d in (2, 3) and dtype == jnp.float32
-             and _pk.fits_vmem(n0m, d))
-    if fused:
-        n_pad = max(-(-n0m // _pk.LANE) * _pk.LANE, _pk.LANE)
-        Hpan = np.stack([_pk.block_panels(Hred_d[a], d, n_pad)
-                         for a in range(N)])
-        Ppan = np.stack([_pk.block_panels(precon_dense[a], d, n_pad)
-                         for a in range(N)])
-    else:
-        Hpan = np.zeros((N, 1, 1, 1))
-        Ppan = np.zeros((N, 1, 1, 1))
-
     # One-hot inter-edge scatter operator (dense path): Asel @ vals is the
-    # MXU replacement for the per-iteration at[e_self].add scatter. Padded
+    # matmul replacement for the per-iteration at[e_self].add scatter. Padded
     # edges carry zero tau/kappa so masking is belt-and-braces.
     if dense:
         m1m = mg.e_self.shape[1]
@@ -1477,9 +1446,7 @@ def build_node_problems(mg: MultiGraph, xi: float = 1e-11,
         dense=dense, mG00_d=cast(mG00_full), mG01_d=cast(mG01_d),
         mG11_d=cast(mG11_d), Hred_d=cast(Hred_d),
         precon_dense=cast(precon_dense),
-        Hpan=jnp.asarray(Hpan, jnp.float32),
         Asel=cast(Asel),
-        Ppan=jnp.asarray(Ppan, jnp.float32),
         dynamic=False, scale_w=jnp.ones((N, mg.m1_max), dtype),
         ipose=jnp.asarray(ipose), imask=jnp.asarray(imask),
         SU=cast(SU), wood_C=jnp.zeros((N, kmax, kmax), dtype),

@@ -1,6 +1,6 @@
 """SE-Sync simplified (translation-eliminated) problem, matrix-free.
 
-TPU-native equivalent of the reference's SESyncProblem with the Simplified
+Equivalent of the reference's SESyncProblem with the Simplified
 formulation (C++/SESync/include/SESync/SESyncProblem.h:36-363): the rank-r
 relaxation minimizes F(Y) = 1/2 <Q Y, Y> over the product of Stiefel blocks,
 where Q = L_Grho + Q_tau:

@@ -61,7 +61,7 @@ class SESyncResult:
 
 def chebyshev_precon(apply_S, lam_max, lam_min=None, degree=8):
     """Chebyshev polynomial approximate inverse of the SPD-shifted
-    certificate operator — the TPU-native stand-in for the reference's
+    certificate operator — the on-device stand-in for the reference's
     ILDL incomplete-LDL^T LOBPCG preconditioner (Preconditioners/ILDL,
     SESync_utils.cpp:790-830): matrix-free, a fixed chain of `degree`
     matvecs, no sparse triangular solves.
@@ -682,7 +682,7 @@ def schur_shift_invert_precon(Sfull, n: int, nd: int, delta: float):
     rotation-block of (S_full + delta I)^-1 is the inverse of the
     delta-shifted generalized Schur complement, which is S + delta I up to
     O(delta)-coupling terms. Cost: one splu of the sparse (n+nd) system +
-    two triangular solves per application — the TPU-forbidden sparse-
+    two triangular solves per application — the device-avoided sparse-
     direct trick is fair game here (host-side certification tool), and it
     is exactly what the corridor-conditioned spectra (ais2klinik) need:
     eigenvalues >> delta are mapped near 1, the near-zero cluster caps at

@@ -15,7 +15,7 @@ import numpy as np
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="SE-Sync (TPU-native)")
+    ap = argparse.ArgumentParser(description="SE-Sync")
     ap.add_argument("--dataset", required=True)
     ap.add_argument("--rmax", type=int, default=6)
     ap.add_argument("--formulation", default="simplified",
@@ -81,4 +81,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from dpgo_tpu.utils import enable_compile_cache
+    enable_compile_cache()
     main()

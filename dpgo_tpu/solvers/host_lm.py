@@ -12,9 +12,9 @@ stationarity plateau.
 This is the moral equivalent of the reference's CHOLMOD-backed second-order
 machinery (Eigen::CholmodDecomposition, /root/reference/C++/DPGO/include/
 DPGO/DPGO_types.h:27; TNT inner solves, DPGOProblem.cpp:93-124) — the one
-architectural piece the TPU-first design replaced with preconditioned CG,
+architectural piece the accelerator design replaced with preconditioned CG,
 reintroduced here as a host-side f64 tool for the rare graph whose
-conditioning defeats preconditioning. It is NOT on the TPU hot path.
+conditioning defeats preconditioning. It is NOT on the device hot path.
 
 Objective (matches dpgo_tpu.objective.evaluate_f, trivial loss):
     F(t, theta) = 1/2 sum_e  tau_e |t_i + R(th_i) t~_e - t_j|^2
@@ -361,9 +361,9 @@ def lm_polish_3d(meas: Measurements, t0: np.ndarray, R0: np.ndarray,
 def host_objective_2f(meas: Measurements, t: np.ndarray,
                       R: np.ndarray) -> float:
     """2*F in exact numpy f64 (chordal objective, trivial loss) — the
-    host-side oracle for processes where jax f64 is unavailable (a TPU
-    process evaluates _metrics in f32, whose ~1e-4-relative noise floor on
-    10k-pose graphs masks polish-level improvements). Matches
+    host-side oracle for f32 runs (an f32 solver evaluates _metrics in
+    f32, whose ~1e-4-relative noise floor on 10k-pose graphs masks
+    polish-level improvements). Matches
     dpgo_tpu.objective.evaluate_f exactly; the single shared encoding for
     host tools (run_baselines gap column, etc.)."""
     t = np.asarray(t, np.float64)

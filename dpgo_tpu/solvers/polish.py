@@ -3,8 +3,9 @@
 The reference framework never couples nodes inside a second-order solve: its
 TNT refinement is strictly per-node (block-diagonal Hessian), because every
 inner CG iteration would otherwise cost one robot-network message round
-(DPGOProblem.cpp:552-577 — the Hessian-vp is local by design). On TPU the
-"network" is ICI / an on-device gather, so a GLOBAL truncated-Newton step —
+(DPGOProblem.cpp:552-577 — the Hessian-vp is local by design). On one
+device the "network" is an on-device gather (on several, a collective over
+the interconnect), so a GLOBAL truncated-Newton step —
 whose Hessian-vector product needs exactly one halo exchange per CG
 iteration — is cheap. This module runs Riemannian TNT (solvers/tnt.py, the
 same machinery as the per-node refinement and the SE-Sync staircase) on the

@@ -58,10 +58,6 @@ class TNTParams:
     max_tCG_iterations: int = 250
     kappa_fgr: float = 0.05
     theta: float = 0.9
-    # Use the fused single-kernel Pallas STPCG (ops/pallas_stpcg.py) when
-    # the problem's VMEM panels were built; False forces the portable
-    # XLA-op CG (A/B lever for bench.py's fused-engagement verification).
-    fused: bool = True
     # f32 noise-floor gate (see step_core): stop refining when the first
     # CG step's PRECONDITIONED model-decrease estimate 1/2 g^T P g falls
     # below objective-evaluation noise. The estimate is only meaningful
@@ -84,11 +80,6 @@ class TNTModel(NamedTuple):
     hess_vp(x, nabla, v) -> tangent pytree
     precondition(x, v) -> tangent pytree
     retract(x, v) -> new variable pytree
-    fused_stpcg (optional): (x, nabla, grad, pgrad, Delta, active) ->
-        (h, Hh, h_M_norm, inner_iterations) — a single-kernel trust-region
-        subproblem solver replacing the generic stpcg loop (the Pallas
-        fused CG, ops/pallas_stpcg.py). Must implement identical
-        semantics; the portable stpcg below remains the oracle.
     precon_spans_full_space: declare False when `precondition` omits part
         of the tangent space (e.g. the polish's node-block preconditioner
         excludes inter-node coupling) — it disables the f32 noise-floor
@@ -101,7 +92,6 @@ class TNTModel(NamedTuple):
     hess_vp: Callable
     precondition: Callable
     retract: Callable
-    fused_stpcg: Callable | None = None
     precon_spans_full_space: bool = True
 
 
@@ -332,8 +322,7 @@ def tnt_generic(model: TNTModel, x0, params: TNTParams,
         # ~ 1/2 g^T P g; when that is below the working precision's
         # objective-evaluation noise, accept/reject gain ratios are coin
         # flips — in f32 such lanes reject noise steps and burn the whole
-        # outer budget while dragging every vmapped lane's shared CG loop
-        # (measured: 158 -> ~280 it/s on the refined sphere2500 preset).
+        # outer budget while dragging every vmapped lane's shared CG loop.
         # Stop refining instead. Inactive in f64, where the floor
         # (~1e-14 |f|) is below anything the reference's own
         # relative_decrease_tolerance would accept.
@@ -349,15 +338,11 @@ def tnt_generic(model: TNTModel, x0, params: TNTParams,
                 * (1.0 + jnp.abs(st.fx))
             grad_small = grad_small | (dm_est < noise_floor)
 
-        if model.fused_stpcg is not None:
-            h, Hh, h_M_norm, inner_k = model.fused_stpcg(
-                st.x, st.nabla, st.grad, st.pgrad, st.Delta, ~grad_small)
-        else:
-            h, Hh, h_M_norm, inner_k = stpcg(
-                st.grad,
-                lambda v: model.hess_vp(st.x, st.nabla, v),
-                lambda v: model.precondition(st.x, v),
-                st.Delta, params, v0=st.pgrad, active=~grad_small)
+        h, Hh, h_M_norm, inner_k = stpcg(
+            st.grad,
+            lambda v: model.hess_vp(st.x, st.nabla, v),
+            lambda v: model.precondition(st.x, v),
+            st.Delta, params, v0=st.pgrad, active=~grad_small)
         h_norm = jnp.sqrt(_ip(h, h))
 
         x_prop = model.retract(st.x, h)

@@ -1,7 +1,7 @@
 // Native host runtime: fast g2o parsing + contiguous block partitioning.
 //
 // The reference's host-side data pipeline is C++ (DPGO_utils.cpp:8-438);
-// this library provides the same role for the TPU framework: a
+// this library provides the same role for this framework: a
 // zero-dependency C API consumed through ctypes (dpgo_tpu/io/native.py),
 // returning flat arrays ready for device upload. The Python parser remains
 // as a portable fallback.

@@ -4,7 +4,7 @@
 // library (C++/PCM/fmc: exact branch-and-bound `maxClique`,
 // findClique.h:46, and heuristic `maxCliqueHeu`, :50-52) behind the
 // PCM::MaxCliqueSolver hierarchy (PCM/PCM.hpp:15-191). This is the native
-// equivalent for the TPU framework's host-side PCM stage (dpgo_tpu/pcm.py):
+// equivalent for the framework's host-side PCM stage (dpgo_tpu/pcm.py):
 // a Tomita-style exact branch-and-bound with greedy-coloring bound over
 // 64-bit-word bitset adjacency, plus the same greedy heuristic.
 //

@@ -1,4 +1,4 @@
-"""Auxiliary subsystems: config loading, checkpointing, viz, pallas kernel."""
+"""Auxiliary subsystems: config loading, checkpointing, viz, SO(3) projection."""
 
 import os
 
@@ -80,16 +80,6 @@ def test_viz_iterate_animation(rng, tmp_path):
     p = str(tmp_path / "iterates.gif")
     animate_iterates(frames, p, edges=(meas.i, meas.j), fps=2)
     assert os.path.getsize(p) > 0
-
-
-def test_pallas_so3_interpret(rng):
-    from dpgo_tpu.ops.so3 import polar_so3
-    from dpgo_tpu.ops.pallas_so3 import polar_so3_pallas
-    A = rng.normal(size=(700, 3, 3))
-    A[::5, :, 1] *= -1  # mix in det < 0
-    R_ref = np.asarray(polar_so3(jnp.asarray(A)))
-    R_pl = np.asarray(polar_so3_pallas(jnp.asarray(A), interpret=True))
-    np.testing.assert_allclose(R_pl, R_ref, atol=1e-12)
 
 
 def test_ate_alignment(rng):

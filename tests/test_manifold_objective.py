@@ -10,6 +10,8 @@ from dpgo_tpu.losses import Loss, loss_value, loss_weight
 from dpgo_tpu.objective import (EdgeData, evaluate_f, evaluate_euclidean_grad,
                                 evaluate_riemannian_grad)
 from dpgo_tpu.graph import make_partition
+from dpgo_tpu.ops.so3 import polar_so3
+from dpgo_tpu.ops.so3_triton import polar_so3_triton
 
 from tests.synthetic import random_pose_graph
 
@@ -22,6 +24,51 @@ def brute_force_project(A):
     Up = U.copy()
     Up[det < 0, :, -1] *= -1
     return np.einsum("nik,nkj->nij", Up, Vt)
+
+
+def well_conditioned_3x3(rng, n, neg_share):
+    """U diag(s) V^T with separated singular values (so the projection is
+    well conditioned) and det < 0 for a `neg_share` fraction."""
+    def rot(k):
+        q, r = np.linalg.qr(rng.normal(size=(k, 3, 3)))
+        q = q * np.sign(np.diagonal(r, axis1=-2, axis2=-1))[:, None, :]
+        q[np.linalg.det(q) < 0, :, 0] *= -1
+        return q
+    s = np.stack([rng.uniform(1.0, 2.0, n), rng.uniform(0.5, 0.8, n),
+                  rng.uniform(0.1, 0.3, n)], axis=1)
+    s[rng.random(n) < neg_share, 2] *= -1
+    return np.einsum("nab,nb,ncb->nac", rot(n), s, rot(n))
+
+
+@pytest.mark.parametrize("dtype,tol", [(jnp.float32, 1e-5),
+                                       (jnp.float64, 1e-12)])
+@pytest.mark.parametrize("n", [5, 3000])
+@pytest.mark.parametrize("neg_share", [0.2, 1.0])
+def test_project_so3_batch_matches_svd(rng, dtype, tol, n, neg_share):
+    """d = 3 projection (ops/so3.polar_so3) against float64 SVD over batch
+    sizes and shares of det < 0 inputs, in both working precisions."""
+    A = well_conditioned_3x3(rng, n, neg_share)
+    R = np.asarray(jax.jit(manifold.project_sod)(jnp.asarray(A, dtype)))
+    assert R.dtype == np.dtype(dtype)
+    np.testing.assert_allclose(R, brute_force_project(A), atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(jnp.float32, 1e-5),
+                                       (jnp.float64, 1e-12)])
+@pytest.mark.parametrize("lead", [(5,), (3, 100)])
+def test_polar_so3_triton_interpret_matches_svd(rng, dtype, tol, lead):
+    """The GPU kernel, run in Pallas' interpreter, against float64 SVD and
+    the plain jnp body, with batches that do not fill the last block and
+    leading batch axes."""
+    n = int(np.prod(lead))
+    A = well_conditioned_3x3(rng, n, 0.3).reshape(*lead, 3, 3)
+    R = np.asarray(polar_so3_triton(jnp.asarray(A, dtype), interpret=True))
+    assert R.shape == A.shape and R.dtype == np.dtype(dtype)
+    np.testing.assert_allclose(R.reshape(n, 3, 3),
+                               brute_force_project(A.reshape(n, 3, 3)),
+                               atol=tol)
+    np.testing.assert_allclose(
+        R, np.asarray(polar_so3(jnp.asarray(A, dtype))), atol=tol)
 
 
 @pytest.mark.parametrize("d", [2, 3])

@@ -285,7 +285,7 @@ def test_hessian_vp_symmetric_and_fd(rng):
 
 
 def test_dense_operators_match_edgewise(rng):
-    """The MXU dense operator images agree with the edge-wise operators."""
+    """The dense operator images agree with the edge-wise operators."""
     meas, part, nodes, mg, probs = make_problem(rng, xi=1e-4)
     t, R = rand_global(rng, meas)
     zs = global_to_states(mg, part, t, R)

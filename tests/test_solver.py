@@ -151,7 +151,7 @@ def test_local_gauge_invariance():
 
 def test_edgewise_dense_path_parity():
     """The edge-wise (matrix-free) operator path — the fallback for blocks
-    above dense_limit — matches the dense MXU path trajectory.
+    above dense_limit — matches the dense-operator path trajectory.
 
     TNT refinement is disabled: the two paths use different (equally valid)
     STPCG preconditioners, so refined trajectories legitimately diverge;

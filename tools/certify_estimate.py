@@ -1,12 +1,11 @@
 """Certify a saved pose estimate in CPU float64, with optional f64 polish.
 
-The hybrid-precision recipe, automated: TPU f32 estimates carry an f32-level
+The hybrid-precision recipe, automated: f32 estimates carry an f32-level
 stationarity defect, and the residual-honest certificate charges that defect
 — so certify in an f64 CPU process, optionally after a short f64 AMM polish
 that removes the f32 noise (30 iterations suffice on the benchmark graphs).
 
-Prints ONE JSON line. Used by tools/run_baselines.py --platform tpu (a TPU
-process cannot compute f64, so it shells out here); also usable standalone:
+Prints ONE JSON line. Usage:
 
   JAX_PLATFORMS=cpu python tools/certify_estimate.py \
       --dataset /root/reference/dataset/sphere2500.g2o --npz est.npz \

@@ -10,10 +10,10 @@ Usage:
     PYTHONPATH=/root/repo python tools/multihost_demo.py           # driver
     (the driver re-execs itself as workers with MHOST_RANK set)
 
-This validates the exact code path a real multi-host TPU deployment uses:
+This validates the exact code path a real multi-host deployment uses:
 jax.distributed.initialize + a Mesh over non-addressable devices +
-shard_map collectives for the halo exchange. On TPU pods only the mesh
-construction changes (jax.devices() already spans hosts).
+shard_map collectives for the halo exchange. On accelerator hosts only the
+mesh construction changes (jax.devices() already spans hosts).
 """
 
 import os

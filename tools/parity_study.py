@@ -7,7 +7,7 @@ the T-RO paper's per-dataset convergence plots (the reference repo publishes
 no numbers; our certified catalog is the ground truth). Writes
 artifacts/parity_study.json and prints a markdown table.
 
-Usage (CPU f64 by default; pass --f32 for the TPU dtype):
+Usage (CPU f64 by default; pass --f32 for the f32 solver):
     JAX_PLATFORMS=cpu PYTHONPATH=/root/repo python tools/parity_study.py
 """
 
